@@ -1,18 +1,18 @@
-"""DALLE: joint text + image autoregressive transformer, inference path.
+"""DALLE: joint text + image autoregressive transformer.
 
 PyTorch counterpart of ``dalle_pytorch_tpu/models/dalle.py``: the config
 (every field, with a ``to_dict``/``from_dict`` that round-trips the JAX
 package's checkpoint ``hparams``), the per-phase logits head, the axial
-image position embedding, and generation: ``prefill`` of the prompt, the
+image position embedding, the forward with its phase-sliced training loss
+(``forward(..., return_loss=True)``, ``embed_sequence``,
+``loss_from_hidden``), and generation: ``prefill`` of the prompt, the
 KV-cache ``decode_step``, top-k/top-p sampling and the prefill / tile /
-decode composition.  Training, int8, speculative decode and sequence
-parallelism are not ported yet; a config asking for them raises
-``NotImplementedError`` when the model is built.
+decode composition.  Int8, speculative decode, MoE, the reversible
+executor and sequence parallelism are not ported yet; a config asking for
+them raises ``NotImplementedError`` when the model is built.
 
-Parameters keep the JAX layout's precision: norms, embeddings, LayerScale
-and the logits head in f32, the transformer's projections in ``cfg.dtype``
-(the JAX model casts its f32 params to ``dtype`` at every use, which gives
-the same values).
+Every parameter is f32 whatever ``cfg.dtype`` is, as in the JAX tree; the
+transformer casts its projections to ``dtype`` at use, as flax does.
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ import torch
 from torch import nn
 
 from ..ops.transformer import LN_EPS, Transformer
-from ..utils.helpers import resolve_device, top_k_filter, top_p_filter
+from ..utils.helpers import (max_neg_value, resolve_device, top_k_filter,
+                             top_p_filter)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,9 +154,11 @@ class PhaseLogits(nn.Module):
             return torch.nn.functional.linear(x, w, layer.bias)
         return layer(x)
 
-    def forward(self, x, image_only: bool = False):
-        """Joint-vocab logits, or with ``image_only`` the image phase alone
-        (every sampled position is an image position)."""
+    def forward(self, x, image_only: bool = False, text_only: bool = False):
+        """Joint-vocab logits, or one phase alone: ``image_only`` (every
+        sampled position is an image position) or ``text_only``."""
+        if text_only:
+            return self._phase(self.text, x)
         image = self._phase(self.image, x)
         if image_only:
             return image
@@ -197,6 +200,7 @@ class DALLE(nn.Module):
         self.transformer = Transformer(
             dim=cfg.dim, depth=cfg.depth, seq_len=cfg.seq_len, causal=True,
             heads=cfg.heads, dim_head=cfg.dim_head,
+            attn_dropout=cfg.attn_dropout, ff_dropout=cfg.ff_dropout,
             attn_types=tuple(attn_types), image_fmap_size=cfg.image_fmap_size,
             text_len=cfg.text_seq_len + 1, reversible=cfg.reversible,
             use_remat=cfg.use_remat, use_pallas=cfg.use_pallas,
@@ -218,20 +222,31 @@ class DALLE(nn.Module):
             cfg.total_text_tokens - cfg.text_seq_len)
         return torch.where(text == 0, text_range, text)
 
-    def _embed_text(self, text):
+    @staticmethod
+    def _lookup(table: nn.Embedding, ids, onehot: bool):
+        """Token lookup; with ``onehot`` a one-hot matmul, whose gradient is
+        a matmul instead of a scatter-add.  An f32 product that selects one
+        row exactly, as the gather does."""
+        if onehot:
+            oh = torch.nn.functional.one_hot(ids, table.num_embeddings)
+            return torch.matmul(oh.to(table.weight.dtype), table.weight)
+        return table(ids)
+
+    def _embed_text(self, text, onehot: bool = False):
         """Unique-pad remap + <bos> + token and position embeddings."""
         cfg = self.cfg
         if text.shape[-1] != cfg.text_seq_len:
             raise ValueError(f"text length {text.shape[-1]} != text_seq_len "
                              f"{cfg.text_seq_len}")
         text = torch.nn.functional.pad(self._remap_pad_tokens(text), (1, 0))
-        tokens = self.text_emb(text)
+        tokens = self._lookup(self.text_emb, text, onehot)
         tokens = tokens + self.text_pos_emb(
             torch.arange(text.shape[1], device=text.device))
         return tokens.to(cfg.dtype)
 
-    def _embed_image_codes(self, codes):
-        emb = self.image_emb(codes) + self.image_pos_emb(codes.shape[1])
+    def _embed_image_codes(self, codes, onehot: bool = False):
+        emb = (self._lookup(self.image_emb, codes, onehot)
+               + self.image_pos_emb(codes.shape[1]))
         return emb.to(self.cfg.dtype)
 
     @staticmethod
@@ -242,10 +257,80 @@ class DALLE(nn.Module):
             return None
         return torch.nn.functional.pad(mask, (1, 0), value=True)
 
-    def _head(self, out, image_only: bool = False):
+    def _head(self, out, image_only: bool = False, text_only: bool = False):
         """f32 final norm + logits head."""
         return self.to_logits_dense(self.final_norm(out.float()),
-                                    image_only=image_only)
+                                    image_only=image_only, text_only=text_only)
+
+    def _logits_mask(self, n: int):
+        """``[n, total_tokens]``, True where a logit must be suppressed: text
+        positions predict text tokens only, image positions image tokens
+        only."""
+        cfg = self.cfg
+        seq = torch.arange(n, device=self.device)[:, None]
+        vocab = torch.arange(cfg.total_tokens, device=self.device)[None, :]
+        return (((seq >= cfg.text_seq_len) & (vocab < cfg.total_text_tokens))
+                | ((seq < cfg.text_seq_len)
+                   & (vocab >= cfg.total_text_tokens)))
+
+    def embed_sequence(self, text, image_codes=None, onehot: bool = False):
+        """[bos+text | image] token embeddings, truncated to ``seq_len``: the
+        input of the transformer stack."""
+        cfg = self.cfg
+        tokens = self._embed_text(text, onehot)
+        if image_codes is not None and image_codes.shape[1] > 0:
+            tokens = torch.cat(
+                [tokens, self._embed_image_codes(image_codes, onehot)], dim=1)
+        return tokens[:, :cfg.seq_len]
+
+    @staticmethod
+    def _phase_nll(phase_logits, labels):
+        """Per-position negative log-likelihood within one vocab phase."""
+        lse = torch.logsumexp(phase_logits, dim=-1)
+        ll = torch.gather(phase_logits, -1, labels[..., None])[..., 0]
+        return lse - ll
+
+    def loss_from_hidden(self, out, text, image_codes):
+        """Final norm + logits head + phase-sliced cross-entropy over the
+        transformer output ``out [b, n, dim]``: text positions score the
+        text vocab against the (pad-remapped) text, image positions the
+        image vocab against the codes.  Loss = (text + w * image) / (w + 1)
+        with w = ``loss_img_weight``."""
+        cfg = self.cfg
+        T = cfg.text_seq_len
+        if cfg.head_phase_sliced:
+            text_logits = self._head(out[:, :T], text_only=True)
+            img_logits = self._head(out[:, T:], image_only=True)
+        else:  # the full head, then the phase slices
+            logits = self._head(out)
+            v_text = cfg.total_text_tokens
+            text_logits = logits[:, :T, :v_text]
+            img_logits = logits[:, T:, v_text:]
+        loss_text = self._phase_nll(text_logits,
+                                    self._remap_pad_tokens(text)).mean()
+        loss_img = self._phase_nll(img_logits, image_codes).mean()
+        w = cfg.loss_img_weight
+        return (loss_text + w * loss_img) / (w + 1)
+
+    def forward(self, text, image_codes=None, mask=None,
+                return_loss: bool = False):
+        """The full forward.  Logits ``[b, n, total_tokens]`` with the
+        wrong-phase half at the dtype's most negative value, or with
+        ``return_loss`` the training loss (image codes required).  Dropout
+        follows the module's training mode."""
+        cfg = self.cfg
+        # one-hot embeds only pay off through their backward
+        onehot = cfg.onehot_embed and return_loss
+        tokens = self.embed_sequence(text, image_codes, onehot)
+        n = tokens.shape[1]
+        out = self.transformer(tokens, mask=self._pad_mask_for_bos(mask))
+        if not return_loss:
+            logits = self._head(out)
+            return logits.masked_fill(self._logits_mask(n)[None],
+                                      max_neg_value(logits.dtype))
+        if image_codes is None:
+            raise ValueError("when training, image codes must be supplied")
+        return self.loss_from_hidden(out, text, image_codes)
 
     @torch.inference_mode()
     def prefill(self, text, prime_codes=None, mask=None):

@@ -1,10 +1,11 @@
-"""DiscreteVAE decode: image codes -> pixels.
+"""DiscreteVAE: pixels -> image codes (encoder) and codes -> pixels.
 
 PyTorch counterpart of ``dalle_pytorch_tpu/models/vae.py`` (``VAEConfig``,
-``ResBlock``, ``Decoder``, the codebook and ``DiscreteVAE.decode``).  The
-encoder and the training loss wait for the training slice.  ``decode``
-keeps the JAX package's NHWC layout at its boundary; inside, the convs run
-NCHW as torch's do.
+``ResBlock``, ``Encoder``, ``Decoder``, the codebook, ``norm``,
+``encode_logits``, ``get_codebook_indices`` and ``decode``).  The
+gumbel-softmax, the VAE loss and its train step wait for the next slice.
+The public functions keep the JAX package's NHWC layout; inside, the convs
+run NCHW as torch's do.
 """
 from __future__ import annotations
 
@@ -85,6 +86,35 @@ class ResBlock(nn.Module):
         return self.conv2(h) + x
 
 
+class Encoder(nn.Module):
+    """num_layers x (4x4 stride-2 conv + relu) + resblocks + 1x1 conv to
+    codebook logits, the head in f32 for a stable softmax whatever the
+    trunk's dtype."""
+
+    def __init__(self, cfg: VAEConfig, device=None):
+        super().__init__()
+        kw = dict(dtype=cfg.dtype, device=device)
+        chan = cfg.channels
+        downs = []
+        for _ in range(cfg.num_layers):
+            downs.append(nn.Conv2d(chan, cfg.hidden_dim, 4, stride=2,
+                                   padding=1, **kw))
+            chan = cfg.hidden_dim
+        self.downs = nn.ModuleList(downs)
+        self.resblocks = nn.ModuleList(ResBlock(chan, **kw)
+                                       for _ in range(cfg.num_resnet_blocks))
+        self.to_logits = nn.Conv2d(chan, cfg.num_tokens, 1, device=device)
+
+    def forward(self, x):
+        """x: ``[b, channels, H, W]`` in ``cfg.dtype`` -> logits
+        ``[b, num_tokens, h, w]`` f32."""
+        for down in self.downs:
+            x = F.relu(down(x))
+        for block in self.resblocks:
+            x = block(x)
+        return self.to_logits(x.float())
+
+
 class Decoder(nn.Module):
     """[1x1 conv + resblocks] + num_layers x (4x4 stride-2 transposed conv
     + relu) + 1x1 conv to pixels (f32)."""
@@ -124,8 +154,8 @@ class Decoder(nn.Module):
 
 
 class DiscreteVAE(nn.Module):
-    """Codebook + decoder, built on ``device`` (CUDA unless
-    ``device="cpu"``)."""
+    """Codebook, encoder and decoder, built on ``device`` (CUDA unless
+    ``device="cpu"``).  Images are NHWC floats in [0, 1]."""
 
     def __init__(self, cfg: VAEConfig, device=None):
         super().__init__()
@@ -133,11 +163,34 @@ class DiscreteVAE(nn.Module):
         self.cfg = cfg
         self.codebook = nn.Embedding(cfg.num_tokens, cfg.codebook_dim,
                                      device=device)
+        self.encoder = Encoder(cfg, device=device)
         self.decoder = Decoder(cfg, device=device)
 
     @property
     def device(self) -> torch.device:
         return self.codebook.weight.device
+
+    def norm(self, images):
+        """Per-channel input normalization, ``(images - mean) / std``."""
+        if self.cfg.normalization is None:
+            return images
+        means, stds = (torch.as_tensor(t, dtype=images.dtype,
+                                       device=images.device)
+                       for t in self.cfg.normalization)
+        return (images - means) / stds
+
+    def encode_logits(self, img):
+        """Encoder logits ``[b, h, w, num_tokens]`` f32 of images
+        ``[b, H, W, channels]``."""
+        x = self.norm(img).to(self.cfg.dtype).permute(0, 3, 1, 2)
+        return self.encoder(x).permute(0, 2, 3, 1)
+
+    def get_codebook_indices(self, img):
+        """Hard token ids ``[b, image_seq_len]``: the encoder's argmax,
+        flattened row-major."""
+        logits = self.encode_logits(img)
+        b, h, w, _ = logits.shape
+        return logits.argmax(dim=-1).reshape(b, h * w)
 
     @torch.inference_mode()
     def decode(self, img_seq):

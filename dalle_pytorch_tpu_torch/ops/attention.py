@@ -20,9 +20,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..utils.helpers import max_neg_value
+from ..utils.helpers import linear_in, max_neg_value
 
 VARIANTS = ("full", "axial_row", "axial_col", "conv_like", "sparse")
 
@@ -289,32 +290,37 @@ def _merge_key_pad_mask(pattern: AttnPattern, allow: torch.Tensor,
 class MultiHeadAttention(nn.Module):
     """One attention layer of any variant.
 
-    Fused QKV projection without bias and an output projection with bias.
-    ``use_pallas`` selects the flash path (``ops/flash_attention.py``: the
-    CUDA kernel on the card, its plain version on the CPU); otherwise the
-    dense masked path runs.  Softmax runs in f32 whatever the activation
-    dtype.  Inference only: dropout is not applied.
+    Fused QKV projection without bias and an output projection with bias,
+    their parameters f32 and cast to ``dtype`` at use, as flax's
+    ``DenseGeneral(dtype=...)`` does.  ``use_pallas`` selects the flash
+    path (``ops/flash_attention.py``: the CUDA kernels on the card, their
+    plain versions on the CPU); otherwise the dense masked path runs.  Both
+    are differentiable.  Softmax runs in f32 whatever the activation dtype.
+    ``dropout`` applies to the output projection's result when the caller
+    asks for it with ``drop`` (training).
     """
 
     def __init__(self, pattern: AttnPattern, dim: int = 256, heads: int = 8,
-                 dim_head: int = 64, use_pallas: bool = False,
-                 sliced_kv_decode: bool = True, dtype=torch.float32,
-                 device=None):
+                 dim_head: int = 64, dropout: float = 0.0,
+                 use_pallas: bool = False, sliced_kv_decode: bool = True,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.pattern = pattern
         self.heads = heads
         self.dim_head = dim_head
+        self.dropout = dropout
         self.use_pallas = use_pallas
         self.sliced_kv_decode = sliced_kv_decode
+        self.dtype = dtype
         inner = heads * dim_head
         # output features ordered (q|k|v, head, dh), the JAX [dim, 3, h, dh]
-        self.to_qkv = nn.Linear(dim, 3 * inner, bias=False, dtype=dtype,
-                                device=device)
-        self.to_out = nn.Linear(inner, dim, dtype=dtype, device=device)
+        self.to_qkv = nn.Linear(dim, 3 * inner, bias=False, device=device)
+        self.to_out = nn.Linear(inner, dim, device=device)
 
     def _qkv(self, x):
         b, n, _ = x.shape
-        qkv = self.to_qkv(x).view(b, n, 3, self.heads, self.dim_head)
+        qkv = linear_in(self.to_qkv, x, self.dtype).view(
+            b, n, 3, self.heads, self.dim_head)
         qkv = qkv.permute(2, 0, 3, 1, 4)  # [3, b, heads, n, dh]
         return qkv[0], qkv[1], qkv[2]
 
@@ -326,7 +332,8 @@ class MultiHeadAttention(nn.Module):
         pad = _scope_key_pad(self.pattern, mask, n)
         return torch.where(pad, 0.0, -1e30).to(torch.float32).contiguous()
 
-    def forward(self, x, mask=None, return_kv: bool = False):
+    def forward(self, x, mask=None, return_kv: bool = False,
+                drop: bool = False):
         b, n, _ = x.shape
         q, k, v = self._qkv(x)
         if self.use_pallas:
@@ -348,7 +355,9 @@ class MultiHeadAttention(nn.Module):
 
         out = out.to(x.dtype).transpose(1, 2).reshape(
             b, n, self.heads * self.dim_head)
-        out = self.to_out(out)
+        out = linear_in(self.to_out, out, self.dtype)
+        if drop and self.dropout > 0:
+            out = F.dropout(out, self.dropout)
         if return_kv:
             return out, (k, v)
         return out
@@ -412,4 +421,4 @@ class MultiHeadAttention(nn.Module):
         attn = torch.softmax(dots, dim=-1)  # f32
         out = self._attn_v(attn, v_sub, x.dtype)
         out = out.transpose(1, 2).reshape(b, 1, self.heads * self.dim_head)
-        return self.to_out(out), cache_k, cache_v
+        return linear_in(self.to_out, out, self.dtype), cache_k, cache_v

@@ -2,10 +2,14 @@
 
 PyTorch counterpart of ``dalle_pytorch_tpu/ops/transformer.py``: the
 residual executor with per-layer attention variants cycled from
-``attn_types``, its ``return_kv`` forward (prefill) and its KV-cache
-``decode_step``.  Inference only, so dropout is not applied.  The
-reversible executor, rematerialization and MoE feed-forward are not
-ported yet and raise ``NotImplementedError``.
+``attn_types``, its training and ``return_kv`` (prefill) forwards, with
+``use_remat`` as ``torch.utils.checkpoint`` per (attn, ff) block, and its
+KV-cache ``decode_step``.  Dropout (attention output and feed-forward)
+applies in the training forward of a module in training mode, never in
+prefill or decode.  The projections keep f32 parameters and run in the
+activation dtype, as flax's ``Dense(dtype=...)``.  The reversible
+executor and the MoE feed-forward are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,8 +18,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..utils.helpers import cast_tuple, default
+from ..utils.helpers import cast_tuple, default, linear_in
 from .attention import AttnPattern, MultiHeadAttention
 
 LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
@@ -39,21 +44,22 @@ class AttnBlock(nn.Module):
     """LayerScale(PreNorm(attention))."""
 
     def __init__(self, pattern: AttnPattern, dim: int, layer_index: int,
-                 heads: int = 8, dim_head: int = 64, use_pallas: bool = False,
-                 sliced_kv_decode: bool = True, dtype=torch.float32,
-                 device=None):
+                 heads: int = 8, dim_head: int = 64, dropout: float = 0.0,
+                 use_pallas: bool = False, sliced_kv_decode: bool = True,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.norm = nn.LayerNorm(dim, eps=LN_EPS, device=device)
         self.attn = MultiHeadAttention(
-            pattern, dim=dim, heads=heads, dim_head=dim_head,
+            pattern, dim=dim, heads=heads, dim_head=dim_head, dropout=dropout,
             use_pallas=use_pallas, sliced_kv_decode=sliced_kv_decode,
             dtype=dtype, device=device)
         self.scale = nn.Parameter(torch.full(
             (1, 1, dim), layerscale_init(layer_index), device=device))
 
-    def forward(self, x, mask=None, return_kv: bool = False):
+    def forward(self, x, mask=None, return_kv: bool = False,
+                drop: bool = False):
         out = self.attn(layer_norm(self.norm, x), mask=mask,
-                        return_kv=return_kv)
+                        return_kv=return_kv, drop=drop)
         if return_kv:
             h, kv = out
             return h * self.scale.to(h.dtype), kv
@@ -69,21 +75,25 @@ class FFBlock(nn.Module):
     """LayerScale(PreNorm(GEGLU feed-forward))."""
 
     def __init__(self, dim: int, layer_index: int, mult: int = 4,
-                 dtype=torch.float32, device=None):
+                 dropout: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
         inner = int(dim * mult)
+        self.dropout = dropout
+        self.dtype = dtype
         self.norm = nn.LayerNorm(dim, eps=LN_EPS, device=device)
-        self.dense_in = nn.Linear(dim, inner * 2, dtype=dtype, device=device)
-        self.dense_out = nn.Linear(inner, dim, dtype=dtype, device=device)
+        self.dense_in = nn.Linear(dim, inner * 2, device=device)
+        self.dense_out = nn.Linear(inner, dim, device=device)
         self.scale = nn.Parameter(torch.full(
             (1, 1, dim), layerscale_init(layer_index), device=device))
 
-    def forward(self, x):
-        h = self.dense_in(layer_norm(self.norm, x))
+    def forward(self, x, drop: bool = False):
+        h = linear_in(self.dense_in, layer_norm(self.norm, x), self.dtype)
         h, gates = h.chunk(2, dim=-1)
         # flax's nn.gelu is the tanh approximation
         h = h * F.gelu(gates, approximate="tanh")
-        h = self.dense_out(h)
+        if drop and self.dropout > 0:
+            h = F.dropout(h, self.dropout)
+        h = linear_in(self.dense_out, h, self.dtype)
         return h * self.scale.to(h.dtype)
 
 
@@ -92,6 +102,7 @@ class Transformer(nn.Module):
 
     def __init__(self, dim: int, depth: int, seq_len: int, causal: bool = True,
                  heads: int = 8, dim_head: int = 64, ff_mult: int = 4,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0,
                  attn_types: Optional[Tuple[str, ...]] = None,
                  image_fmap_size: Optional[int] = None,
                  text_len: Optional[int] = None, reversible: bool = False,
@@ -102,11 +113,10 @@ class Transformer(nn.Module):
         super().__init__()
         if reversible:
             raise NotImplementedError("the reversible executor is not ported")
-        if use_remat:
-            raise NotImplementedError("rematerialization is not ported")
         if ff_experts > 1:
             raise NotImplementedError("the MoE feed-forward is not ported")
         self.depth = depth
+        self.use_remat = use_remat
         self.heads = heads
         self.dim_head = dim_head
         self.seq_len = seq_len
@@ -122,25 +132,41 @@ class Transformer(nn.Module):
                 layout_seed=sparse_layout_seed + ind)
             attn_blocks.append(AttnBlock(
                 pattern, dim, ind + 1, heads=heads, dim_head=dim_head,
-                use_pallas=use_pallas, sliced_kv_decode=sliced_kv_decode,
-                dtype=dtype, device=device))
-            ff_blocks.append(FFBlock(dim, ind + 1, mult=ff_mult, dtype=dtype,
+                dropout=attn_dropout, use_pallas=use_pallas,
+                sliced_kv_decode=sliced_kv_decode, dtype=dtype,
+                device=device))
+            ff_blocks.append(FFBlock(dim, ind + 1, mult=ff_mult,
+                                     dropout=ff_dropout, dtype=dtype,
                                      device=device))
         self.attn_blocks = nn.ModuleList(attn_blocks)
         self.ff_blocks = nn.ModuleList(ff_blocks)
 
+    def _block(self, x, ind: int, mask, drop: bool):
+        """One (attn, ff) residual block of the training forward."""
+        x = x + self.attn_blocks[ind](x, mask=mask, drop=drop)
+        return x + self.ff_blocks[ind](x, drop=drop)
+
     def forward(self, x, mask=None, return_kv: bool = False):
-        kvs = []
-        for attn, ff in zip(self.attn_blocks, self.ff_blocks):
-            if return_kv:
+        """The stack over ``x [b, n, dim]``.  With ``return_kv`` (prefill)
+        also each layer's ``(k, v)``, and no dropout.  Otherwise dropout
+        follows the module's training mode, and ``use_remat`` recomputes
+        each block in the backward (so a flash layer's forward kernel runs
+        twice per step) when grads are being recorded."""
+        if return_kv:
+            kvs = []
+            for attn, ff in zip(self.attn_blocks, self.ff_blocks):
                 h, kv = attn(x, mask=mask, return_kv=True)
                 kvs.append(kv)
-            else:
-                h = attn(x, mask=mask)
-            x = x + h
-            x = x + ff(x)
-        if return_kv:
+                x = x + h
+                x = x + ff(x)
             return x, kvs
+        remat = self.use_remat and torch.is_grad_enabled()
+        for ind in range(self.depth):
+            if remat:
+                x = checkpoint(self._block, x, ind, mask, self.training,
+                               use_reentrant=False)
+            else:
+                x = self._block(x, ind, mask, self.training)
         return x
 
     def decode_step(self, x, caches, index: int, mask=None):

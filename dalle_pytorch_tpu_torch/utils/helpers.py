@@ -29,6 +29,16 @@ def cast_tuple(val, depth: int = 1):
     return val if isinstance(val, tuple) else (val,) * depth
 
 
+def linear_in(layer: torch.nn.Linear, x: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """A flax ``Dense(dtype=dtype)`` call: the layer's f32 weight and bias
+    are cast to ``dtype`` at use (flax's ``promote_dtype``) and the
+    product runs in ``dtype``.  The parameters themselves stay f32."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return torch.nn.functional.linear(x.to(dtype), layer.weight.to(dtype),
+                                      bias)
+
+
 def max_neg_value(dtype: torch.dtype) -> float:
     """Most-negative finite value for a dtype (the dense path's mask fill)."""
     return -torch.finfo(dtype).max

@@ -5,6 +5,9 @@ param tree as nested dicts of numpy arrays (``{"params": ...}`` or the
 tree itself) and return the ``state_dict`` of this package's ``DALLE`` /
 ``DiscreteVAE``.  Both consume the tree key by key and raise on any key
 left over, so a layout change on either side fails loudly.
+``jax_params_from_dalle_state_dict`` is the inverse for DALLE: a
+``state_dict`` back to the JAX tree, exact on a round trip, so that
+trained weights and gradients compare leaf by leaf under JAX names.
 
 ``init_dalle_params`` and ``init_vae_params`` make such trees with numpy
 from a seed, with the flax initializers' scales: random weights for runs
@@ -21,10 +24,6 @@ from .models.dalle import DALLEConfig
 from .models.vae import VAEConfig
 from .ops.transformer import layerscale_init
 
-# VAE subtrees the port has no module for yet; dropped by name
-UNPORTED_VAE_SUBTREES = ("encoder",)
-
-
 class _Tree:
     """A nested param dict whose leaves are taken one by one."""
 
@@ -36,10 +35,6 @@ class _Tree:
         if key not in self.flat:
             raise KeyError(f"param {key} missing from the JAX tree")
         return np.asarray(self.flat.pop(key), dtype=np.float32)
-
-    def drop(self, prefix: str) -> None:
-        for key in [k for k in self.flat if k.startswith(prefix + "/")]:
-            del self.flat[key]
 
     def finish(self) -> None:
         if self.flat:
@@ -103,6 +98,56 @@ def dalle_state_dict_from_jax(params: dict, cfg: DALLEConfig
     return sd
 
 
+def jax_params_from_dalle_state_dict(state_dict, cfg: DALLEConfig) -> dict:
+    """A DALLE ``state_dict`` (tensors on any device) -> ``{"params":
+    tree}`` in the JAX layout, numpy f32 leaves.  Raises on a key it does
+    not consume."""
+    sd = {k: np.ascontiguousarray(v.detach().float().cpu().numpy())
+          for k, v in state_dict.items()}
+
+    def take(key):
+        if key not in sd:
+            raise KeyError(f"{key} missing from the state_dict")
+        return sd.pop(key)
+
+    def dense(src, bias=True):
+        out = {"kernel": np.ascontiguousarray(take(f"{src}.weight").T)}
+        if bias:
+            out["bias"] = take(f"{src}.bias")
+        return out
+
+    def norm(src):
+        return {"scale": take(f"{src}.weight"), "bias": take(f"{src}.bias")}
+
+    tree = {name: {"embedding": take(f"{name}.weight")}
+            for name in ("text_emb", "image_emb", "text_pos_emb")}
+    tree["image_pos_emb"] = {"row": take("image_pos_emb.row"),
+                             "col": take("image_pos_emb.col")}
+    layers = {}
+    for i in range(cfg.depth):
+        a, f = f"transformer.attn_blocks.{i}", f"transformer.ff_blocks.{i}"
+        qkv = take(f"{a}.attn.to_qkv.weight").T
+        layers[f"layers_{i}_attn"] = {
+            "norm": norm(f"{a}.norm"),
+            "attn": {"to_qkv": {"kernel": np.ascontiguousarray(qkv.reshape(
+                         qkv.shape[0], 3, cfg.heads, cfg.dim_head))},
+                     "to_out": dense(f"{a}.attn.to_out")},
+            "scale": take(f"{a}.scale")}
+        layers[f"layers_{i}_ff"] = {
+            "norm": norm(f"{f}.norm"), "dense_in": dense(f"{f}.dense_in"),
+            "dense_out": dense(f"{f}.dense_out"), "scale": take(f"{f}.scale")}
+    tree["transformer"] = layers
+    tree["final_norm"] = norm("final_norm")
+    tree["to_logits_dense"] = {}
+    for phase in ("text", "image"):
+        head = dense(f"to_logits_dense.{phase}")
+        tree["to_logits_dense"][f"{phase}_kernel"] = head["kernel"]
+        tree["to_logits_dense"][f"{phase}_bias"] = head["bias"]
+    if sd:
+        raise ValueError(f"state_dict keys not consumed: {sorted(sd)}")
+    return {"params": tree}
+
+
 def _conv(sd, tree: _Tree, dst: str, *src: str):
     """flax Conv ``kernel [kh, kw, in, out]`` -> torch ``[out, in, kh, kw]``."""
     sd[f"{dst}.weight"] = _t(tree.take(*src, "kernel").transpose(3, 2, 0, 1))
@@ -121,10 +166,17 @@ def _conv_transpose(sd, tree: _Tree, dst: str, *src: str):
 def vae_state_dict_from_jax(params: dict, cfg: VAEConfig
                             ) -> Dict[str, torch.Tensor]:
     tree = _Tree(params)
-    for name in UNPORTED_VAE_SUBTREES:
-        tree.drop(name)
     sd: Dict[str, torch.Tensor] = {
         "codebook.weight": _t(tree.take("codebook", "embedding"))}
+    # flax numbers the encoder's plain convs in call order: the downs, then
+    # the head after the resblocks
+    for i in range(cfg.num_layers):
+        _conv(sd, tree, f"encoder.downs.{i}", "encoder", f"Conv_{i}")
+    for i in range(cfg.num_resnet_blocks):
+        for j in range(3):
+            _conv(sd, tree, f"encoder.resblocks.{i}.conv{j}", "encoder",
+                  f"ResBlock_{i}", f"Conv_{j}")
+    _conv(sd, tree, "encoder.to_logits", "encoder", f"Conv_{cfg.num_layers}")
     conv = 0  # flax numbers the decoder's plain convs in call order
     if cfg.num_resnet_blocks > 0:
         _conv(sd, tree, "decoder.stem", "decoder", f"Conv_{conv}")
@@ -211,9 +263,15 @@ def _conv_np(rng, k, cin, cout) -> dict:
             "bias": np.zeros((cout,), np.float32)}
 
 
+def _resblock_np(rng, hid) -> dict:
+    return {"Conv_0": _conv_np(rng, 3, hid, hid),
+            "Conv_1": _conv_np(rng, 3, hid, hid),
+            "Conv_2": _conv_np(rng, 1, hid, hid)}
+
+
 def init_vae_params(cfg: VAEConfig, seed: int = 0) -> dict:
-    """The codebook + decoder of a DiscreteVAE param tree in the JAX layout
-    (no encoder), drawn with numpy from ``seed``."""
+    """A DiscreteVAE param tree (codebook, encoder, decoder) in the JAX
+    layout, drawn with numpy from ``seed``."""
     rng = np.random.default_rng(seed)
     hid = cfg.hidden_dim
     dec = {}
@@ -223,14 +281,20 @@ def init_vae_params(cfg: VAEConfig, seed: int = 0) -> dict:
         conv += 1
         chan = hid
         for i in range(cfg.num_resnet_blocks):
-            dec[f"ResBlock_{i}"] = {
-                "Conv_0": _conv_np(rng, 3, hid, hid),
-                "Conv_1": _conv_np(rng, 3, hid, hid),
-                "Conv_2": _conv_np(rng, 1, hid, hid)}
+            dec[f"ResBlock_{i}"] = _resblock_np(rng, hid)
     for i in range(cfg.num_layers):
         dec[f"ConvTranspose_{i}"] = _conv_np(rng, 4, chan, hid)
         chan = hid
     dec[f"Conv_{conv}"] = _conv_np(rng, 1, chan, cfg.channels)
     codebook = rng.standard_normal(
         (cfg.num_tokens, cfg.codebook_dim)).astype(np.float32)
-    return {"params": {"codebook": {"embedding": codebook}, "decoder": dec}}
+    enc = {}
+    chan = cfg.channels
+    for i in range(cfg.num_layers):
+        enc[f"Conv_{i}"] = _conv_np(rng, 4, chan, hid)
+        chan = hid
+    for i in range(cfg.num_resnet_blocks):
+        enc[f"ResBlock_{i}"] = _resblock_np(rng, hid)
+    enc[f"Conv_{cfg.num_layers}"] = _conv_np(rng, 1, chan, cfg.num_tokens)
+    return {"params": {"codebook": {"embedding": codebook}, "encoder": enc,
+                       "decoder": dec}}

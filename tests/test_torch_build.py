@@ -6,10 +6,11 @@ from dalle_pytorch_tpu_torch.ops import _build
 
 
 def test_sources_and_library_names():
-    assert "flash_fwd" in _build.sources()
-    path = _build.library_path("flash_fwd")
-    assert path.parent == _build.BUILD_DIR
-    assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
+    assert {"flash_fwd", "flash_bwd"} <= set(_build.sources())
+    for name in ("flash_fwd", "flash_bwd"):
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
 
 
 def test_library_name_follows_the_flags(monkeypatch):

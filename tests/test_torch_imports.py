@@ -1,6 +1,7 @@
-"""The port stands alone: importing dalle_pytorch_tpu_torch (or running
-chip_smoke.py) loads neither JAX, flax nor the JAX package, and its entry
-points never carry on quietly on the CPU."""
+"""The port stands alone: importing dalle_pytorch_tpu_torch, its training
+step included (or running chip_smoke.py), loads neither JAX, flax, optax
+nor the JAX package, and its entry points never carry on quietly on the
+CPU."""
 import ast
 import subprocess
 import sys
@@ -28,6 +29,8 @@ def _imported_roots(path: Path):
 def test_import_loads_no_jax():
     code = ("import sys, dalle_pytorch_tpu_torch, dalle_pytorch_tpu_torch.cli, "
             "dalle_pytorch_tpu_torch.weights, "
+            "dalle_pytorch_tpu_torch.training, "
+            "dalle_pytorch_tpu_torch.utils.schedule, "
             "dalle_pytorch_tpu_torch.ops.flash_attention\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
